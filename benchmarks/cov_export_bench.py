@@ -1,11 +1,11 @@
 """Serving-path measurement: blocked covariance export at cfg5 scale
 (p=100k, m=512) on one chip — the `covariance_matmat` / `covariance_blocks`
-row of RESULTS.md (VERDICT r2 Missing #5).
+row of RESULTS.md.
 
 Timings are ON-DEVICE production rates (each block closed by a scalar
 fetch): what the export costs before any device→host transfer. Pulling
-blocks to host is bounded by this attachment's ~4 MB/s D2H path and is
-reported separately for one block.
+blocks to host is bounded by the device→host path and is reported
+separately for one block.
 """
 
 import json
@@ -65,14 +65,14 @@ def main():
         float(rows[0, 0])
         nblocks += 1
     dt_all = time.perf_counter() - t0
-    # warm passes: min over 3 repeats (the attachment's ~0.5 s host
-    # hiccups corrupt single-shot timings — CLAUDE.md timing discipline)
-    dt_warm = float("inf")
+    # warm passes: median of 3 repeats
+    warm = []
     for _ in range(3):
         t0 = time.perf_counter()
         for start, rows in model.covariance_blocks(bs):
             float(rows[0, 0])
-        dt_warm = min(dt_warm, time.perf_counter() - t0)
+        warm.append(time.perf_counter() - t0)
+    dt_warm = sorted(warm)[1]
     gb = p * p * 4 / 1e9
     print(json.dumps({
         "blocks": nblocks, "block_rows": bs,

@@ -1,15 +1,15 @@
-"""Benchmark suite reproducing the BASELINE.md table on TPU hardware.
+"""Benchmark suite over the BASELINE.json config sizes.
 
 Measures steady-state solver iterations/sec for each BASELINE.json config
 size plus the north-star metric size, on the current default device. Every
-timed region is one compiled program; timing closes with a scalar fetch
-(BASELINE.md §2 measurement traps: ~35 ms host-sync latency, slow D2H).
+timed region is one compiled program; timing closes with a scalar fetch,
+which waits for the device.
 
 Usage:
     python benchmarks/run_benchmarks.py            # all configs
     python benchmarks/run_benchmarks.py --small    # CI-sized subset
 
-Writes results as a markdown table to stdout and benchmarks/RESULTS.md.
+Prints results as a markdown table to stdout.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ CONFIGS = [
     ("cfg3_p10k_m64_n200", 200, 10_000, 64, "samples", "float32", 0.0326),
     ("northstar_p10k_m512_n10k", 10_000, 10_000, 512, "gram", "float32",
      12.72),
-    # like-for-like row (VERDICT r1 weak #6): same two-GEMM samples-path
+    # like-for-like row: same two-GEMM samples-path
     # iteration structure as the NumPy baseline, so the hardware-vs-
     # algorithm split stays visible (the gram rows also change the
     # algorithm: ~20x fewer FLOPs/iter at this size)
@@ -52,8 +52,8 @@ CONFIGS = [
     # to fixed_point at this fully-sampled shape (n = p)
     ("northstar_p10k_m512_auto_production", 10_000, 10_000, 512, "gram",
      "float32", 12.72, "auto"),
-    # int8 quantized samples path (matmul_dtype='int8'): 2x the bf16 MXU
-    # rate; measured IDENTICAL converged TC at this shape (RESULTS e2e)
+    # int8 quantized samples path (matmul_dtype='int8'): twice the bf16
+    # tensor-core rate; identical converged TC at this shape (RESULTS e2e)
     ("cfg5_p100k_m512_int8", 10_000, 100_000, 512, "samples",
      "int8", 130.7),
     ("northstar_p10k_m512_int8_gram", 10_000, 10_000, 512, "gram",
@@ -100,7 +100,7 @@ def run_one(name, n, p, m, strategy, mm_dtype, iters, optimizer="momentum"):
     if strategy == "gram":
         data = jax.jit(M.compute_gram)(x)
     if mm_dtype == "bfloat16":
-        data = data.astype(jnp.bfloat16)   # halve the per-iter HBM traffic
+        data = data.astype(jnp.bfloat16)   # halve the per-iter memory traffic
         data.block_until_ready()
     elif mm_dtype == "int8":
         # quantize the strategy's operand: X (samples) or Σ (gram)
@@ -304,10 +304,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true")
     # 200 matches bench.py so the shared rows report ONE number: timed
-    # programs carry ~27 ms fixed overhead (dispatch + scalar-fetch sync;
-    # benchmarks/probe_gap.py measured t = 0.89 ms x iters + 27.2 ms at
-    # the north-star int8 fp row), so per-iteration rates depend on the
-    # program's iteration count until ~400 iters
+    # programs carry a fixed overhead (dispatch + scalar-fetch sync), so
+    # per-iteration rates depend on the program's iteration count
     ap.add_argument("--iters", type=int, default=200)
     ap.add_argument("--e2e", action="store_true",
                     help="also run the end-to-end annealed north-star fit")
@@ -332,10 +330,9 @@ def main():
             ips, dt = run_one(name, n, p, m, strategy, mm_dtype, args.iters,
                               optimizer)
             speedup = ips * base if base else float("nan")
-            # sub-0.5 ms/iter rows sit on the attachment's dispatch
-            # latency floor, not compute, and vary ~2x between sessions
-            # — printing a speedup ratio from them would present noise
-            # as fact (see the footer note)
+            # sub-0.5 ms/iter rows sit on the dispatch latency floor,
+            # not compute — a speedup ratio from them would present
+            # noise as fact
             if base and 1000.0 / ips < 0.5:
                 ratio = "(latency floor — ratio is noise)*"
             else:
@@ -362,139 +359,7 @@ def main():
             table += "\n" + run_e2e_cfg5()
         except Exception as e:
             table += f"\n| e2e annealed cfg5 | FAIL | - | {str(e)[:60]} |"
-    print("\n" + table)
-    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                       "RESULTS.md")
-    with open(out, "w") as f:
-        f.write(f"# Benchmark results\n\ndevice: {dev}\n\n{table}\n"
-                f"{RESULTS_FOOTER}")
-    print(f"\nwrote {out}")
-
-
-# Measured once-off sections preserved across table regenerations (the
-# table above is rewritten by every run; these numbers are separate
-# measurement scripts' results, kept with their context).
-RESULTS_FOOTER = """
-Timing: min over 3 repeats per row (utils/profiling.py :: iteration_rate);
-this TPU attachment shows rare ~0.5 s host-side hiccups that corrupt
-single-shot timings — and occasional MINUTES-long degraded phases after
-sustained back-to-back use (BASELINE.md §2; measure on an idle,
-recently-healthy attachment). *The small-shape rows (cfg1-cfg3,
-<0.5 ms/iter) are device/attachment latency floors, not compute — they
-vary ~2x between sessions, so their would-be speedup ratios (measured
-once as 2x / 1,007x / 180x) are noise and the table does not print
-them as facts.
-
-Per-iteration rates depend on the timed program's iteration count: a
-timed program carries ~27 ms fixed overhead (dispatch + scalar-fetch
-close). Measured at the northstar int8 fp row (benchmarks/probe_gap.py,
-2026-08-17): t = 0.89 ms x iters + 27.2 ms, i.e. 691 it/s at 50 iters,
-858 at 100, 981 at 200, 1042 at 400. Round 2's "837 vs 978" discrepancy
-between this table and bench.py was exactly this law (100- vs 200-iter
-programs); both now time 200-iteration programs and agree (~980 it/s,
-the bench.py headline; BENCH_r03).
-
-## First-call wall time at cfg5 — compile cost and the round-3 wiring
-
-`Corex.fit(X)` at p=100k/m=512 (int8 + optimizer='auto'), one process
-per mode (benchmarks/compile_time.py, 2026-08-17, idle attachment):
-
-| mode | first fit wall |
-|---|---|
-| cold (empty compile cache) | 15.1 s |
-| persistent cache warm (new process, same cache dir) | 6.5 s |
-| AOT: `Corex.warmup(n, p)` at deploy time, then first fit | 8.5 s warmup + 6.2 s fit |
-
-Round 2 recorded ~87 s of first-call compile for the bf16 cfg5 fit with
-no caching anywhere. Three round-3 library changes account for the gap:
-the fused `_prepare_program` (preprocess→quantize is ONE compile instead
-of ~10 first-seen-op compiles, each seconds on the remote service),
-device-side unseeded init (drops a 205 MB host→device transfer measured
-at ~12 s), and `ensure_compile_cache()` in every fit entry point. The
-warmup writes exactly the fit's cache key (verified: no new
-jit__fit_program entry after the real fit). Remote-compile latency is
-high-variance (the same selection program compiled in 40 s and 199 s on
-different runs); the persistent cache converts that variance into a
-one-time cost.
-
-## Public-API serving latencies at cfg5 scale (p=100k, m=512, one v5e chip)
-
-Measured via the jitted inference programs (each call = one dispatch;
-eager dispatch costs ~35 ms host-sync latency on this attachment):
-
-| call | steady-state latency |
-|---|---|
-| `Corex.fit` (full annealed, tol=1e-4, bf16) | 4.0 s (144 iters); 2.6 s with matmul_dtype='int8' (e2e row above); first call 15.1 s cold / 6.5 s warm (table above) |
-| `transform(X)` n=10k | 34.9 ms |
-| `predict(Y)` n=10k | 34.7 ms |
-| `covariance_matvec(v)` | 30.4 ms (round 2 recorded 449 ms — re-measured 2026-08-17 on an idle attachment; the old number was taken during what is now a documented degraded phase) |
-| `covariance_matmat(V)` (p, 128) | 27.7 ms (benchmarks/cov_export_bench.py) |
-| `covariance_blocks(4096)`: all 25 row blocks of the 40 GB Σ̂, on device | 1.2 s warm (33 GB/s effective); one compile + 25 dispatches |
-| one 1.6 GB block pulled to host | 139 s — export-to-host is D2H-bound (~12 MB/s on this attachment); keep blocks on device or reduce before pulling |
-| `score(X)` n=10k (Woodbury log-likelihood) | 42.9 ms |
-
-`pick_n_hidden` (p=1024, max_n=8, repeat=4, max_iter=2000), measured
-2026-08-17 with the persistent cache: STEADY-STATE the padded
-one-compile sweep runs 0.24 s vs 0.49 s sequential (2x — one batched
-program vs 8 sequential program dispatches at ~30 ms each + lockstep
-compute). COLD, compile dominates both paths: the sequential path's 8
-small programs total ~16-27 s, the padded path's one big vmapped
-program compiled in 40 s and 199 s on two different runs (service
-variance). padded_sweep=True stays the default — production sweeps
-repeat shapes, and the persistent cache pays the big compile once;
-pass padded_sweep=False for a one-shot cold sweep. (Round 2's
-12.2-vs-16.1 s row was measured cache-off and is superseded.)
-
-Multi-restart at cfg5 (measured probe): int8 makes a best-of-4 restart
-sweep MEMORY-FEASIBLE as one vmapped program on one chip (bf16 OOMs):
-14.0 s steady-state, TCs 204480-206179 (+0.9% best-vs-single-seed).
-Unseeded single fits occasionally land in a visibly worse basin
-(TC ~179-181k seen twice across ~12 unseeded cfg5 fits on 2026-08-17,
-vs the usual 204-206k) — use restarts when the TC matters. Lockstep
-stragglers cost ~1.4x vs running the 4 fits sequentially (~10 s) —
-prefer sequential when the compile is already cached, the vmapped sweep
-when it is not.
-
-## Initialization study: init='spectral' at cfg5 scale (2026-08-17)
-
-Randomized range-finder init (W0 = Q^T from QR(Σ̂·Ω), one Σ-application
-+ thin QR ≈ one solver iteration) vs the reference's random init, at
-p=100k/m=512/n=10k, int8 heavy-ball tol=1e-4, TWO seeds each
-(/tmp probe scripts; strong = in-block corr 0.81 = the cfg5 data, weak
-= corr 0.09 = the round-2 annealing-essential data):
-
-| config | weak-structure TC (iters, wall) | strong-structure TC (iters, wall) |
-|---|---|---|
-| anneal + random (prior recipe) | 7178 / 6989 (167/101 it, 2.6-7.3 s) | 204835 / 205296 (130/137 it, ~3.2 s) |
-| no-anneal + random | 4623 / 4625 — COLLAPSES (-35%) | 205828 / 205958 (35 it, 1.2 s) |
-| **no-anneal + spectral** | **6961 / 6975 (45 it, ~1.1 s)** | **206231 / 206246 (64 it, ~1.5 s)** |
-| anneal + spectral | 7068 / 7055 (111 it, ~2.2 s) | 97048 / 96158 — CATASTROPHIC |
-
-Conclusions (encoded in the config docstring + a construction-time
-warning): `init='spectral', anneal=False` is the best measured cfg5
-config on BOTH structure regimes — on weak structure it rescues the
-no-anneal collapse to within the annealed seed spread at 2.4-7x less
-wall; on strong structure it is the best TC of any config. Combining
-spectral WITH annealing is measured harmful on strong structure (the
-early high-eps stages scramble the aligned init and commit to a ~2x
-worse basin) — the library warns. A second power iteration measured no
-better (6987 vs 6961). At SMALL scale spectral is a wash (overcomplete
-fits reach identical optima; matched-m fits are a seed/basin lottery
-under either init) — the knob is for scale. Default stays 'random'
-(reference parity); seeded spectral is step-matched with the f64 oracle
-(tests/test_api.py).
-
-## Scale ceiling on one chip (measured probe, not a maintained benchmark row)
-
-p=500,000 variables (5x the cfg5 north-star), n=10k, m=512, on ONE v5e
-chip. bf16 X (9.3 GB of the 15.75 GB HBM): `optimizer='fixed_point'`
-runs at 86.1 ms/iter (11.6 it/s) — its iteration carries ~3 fewer
-W-sized (1 GB) buffers than the gradient path — while
-`optimizer='momentum'` exhausts HBM. **matmul_dtype='int8' (5.0 GB X)
-moves the ceiling: heavy-ball RUNS at this size (97.4 ms/iter,
-10.3 it/s) and fixed_point reaches 57.2 ms/iter (17.5 it/s, 1.5x its
-bf16 rate).** Beyond that, use the sample-sharded multi-chip path.
-"""
+    print(f"\ndevice: {dev}\n\n{table}")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Re-measure pick_n_hidden padded-vs-sequential WITH the persistent
-compile cache (VERDICT r2 Weak #5: the round-2 1.33x padded win was
+compile cache (the round-2 1.33x padded win was
 entirely compile-bound and was measured cache-off; the two knobs must be
 judged together).
 

@@ -18,7 +18,7 @@ Estimators compared (all on the same draw):
     NumPy implementation of the 2004 estimator below)
   - Linear CorEx `get_covariance()` (m = n_blocks factors)
 
-Run: python examples/covariance_quality.py  (CPU or TPU; ~20 s on CPU)
+Run: python examples/covariance_quality.py  (CPU or GPU; ~20 s on CPU)
 """
 
 import os

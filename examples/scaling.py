@@ -1,7 +1,7 @@
 """Scaling workflows: multi-restart sweeps, device-mesh sharding, stacking.
 
-Run on any JAX backend; on a multi-chip TPU slice the meshes map onto real
-chips (here they run on whatever devices are visible).
+Run on any JAX backend; on a multi-GPU host the meshes map onto the real
+cards (here they run on whatever devices are visible).
 
 Run: python examples/scaling.py
 """
@@ -88,9 +88,8 @@ def streaming_demo():
 
 
 def int8_demo():
-    """Quantized throughput mode: int8 x int8 -> int32 on the MXU at 2x
-    the bf16 rate (measured identical converged TC — benchmarks/RESULTS.md;
-    pair with tol >= 1e-4)."""
+    """Quantized operand mode: int8 x int8 -> int32 GEMMs against the
+    f32 fit of the same seed (pair with tol >= 1e-4)."""
     import linearcorex_tpu as lc
 
     x = make_data(n=4096, p=256, m=8, seed=2)
@@ -104,7 +103,7 @@ def int8_demo():
 
 def production_demo():
     """Round-3 production workflow: AOT warmup (compile at deploy time,
-    not first-request time), a 2-level multi-slice mesh, stage-boundary
+    not first-request time), a 2-level multi-host mesh, stage-boundary
     checkpointing on that mesh, and blocked covariance export."""
     import tempfile
 
@@ -120,8 +119,8 @@ def production_demo():
     n_dev = len(jax.devices())
     model = lc.Corex(n_hidden=8, seed=0, record_history=False)
     if n_dev % 2 == 0:
-        # 2-level slice x chip mesh: the DP psum reduces hierarchically
-        # (ICI within a slice, DCN across slices on real multi-slice pods)
+        # 2-level host x device mesh: the DP psum reduces hierarchically
+        # (NVLink within a host, the network between hosts)
         mesh = make_mesh(((SLICE_AXIS, 2), (DATA_AXIS, n_dev // 2)))
         plan = ShardingPlan(shard_samples=True, shard_slices=True)
         # AOT: warm THE PROGRAM THE FIT RUNS — the sharded one here (a
@@ -131,10 +130,10 @@ def production_demo():
         # (preemption recovery trades one compile for per-stage ones).
         model.warmup(*x.shape, mesh=mesh, sharding_plan=plan)
         model.fit(x, mesh=mesh, sharding_plan=plan)
-        print(f"multi-slice fit (AOT-warmed): TC {model.tc:.3f}")
+        print(f"multi-host fit (AOT-warmed): TC {model.tc:.3f}")
         # sharded SERVING: the inference surface takes the same mesh/plan
         # pair (round 4) — here the p-sized state + incoming X never need
-        # one device's HBM (use shard_vars plans for p beyond one chip);
+        # one device's memory (use shard_vars plans for p beyond one device);
         # sharding_plan=None on later calls reuses the state's plan
         y = model.transform(x, mesh=mesh, sharding_plan=plan)
         ll = model.score(x, mesh=mesh)
@@ -143,7 +142,7 @@ def production_demo():
         with tempfile.TemporaryDirectory() as ck:
             fit_with_checkpoints(model, x, ck, mesh=mesh,
                                  sharding_plan=plan)
-        print(f"multi-slice checkpointed fit: TC {model.tc:.3f}")
+        print(f"multi-host checkpointed fit: TC {model.tc:.3f}")
     else:
         model.warmup(*x.shape)
         model.fit(x)

@@ -1,4 +1,4 @@
-"""Using the TPU Corex estimator inside the sklearn ecosystem.
+"""Using the Corex estimator inside the sklearn ecosystem.
 
 The estimator implements the full sklearn protocol (get/set_params,
 clone, tags, check_is_fitted, an ignored `y` on fit/score — see

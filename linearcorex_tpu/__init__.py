@@ -1,10 +1,10 @@
-"""linearcorex_tpu — a TPU-native rebuild of Linear CorEx.
+"""linearcorex_tpu — a JAX rebuild of Linear CorEx.
 
 Re-implements the full capability surface of gregversteeg/LinearCorex
 (latent factor models maximizing total correlation explained; see SURVEY.md)
-as an idiomatic JAX/XLA/Pallas library: the annealed fixed-point fit compiles
-to a single device program, moments ride the MXU, restarts/model-selection
-vmap, and large problems shard over device meshes.
+as an idiomatic JAX/XLA library: the annealed fixed-point fit compiles to a
+single device program, the moments are a few large GEMMs,
+restarts/model-selection vmap, and large problems shard over device meshes.
 
 Usage (reference-compatible, `import linearcorex_tpu as lc`):
 

@@ -13,7 +13,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 
-# Named hyperparameter bundles for `Corex(preset=...)` (VERDICT r3 #8):
+# Named hyperparameter bundles for `Corex(preset=...)`:
 # each maps constructor parameters to the preset's DEFAULT values; a
 # parameter the user sets to any non-default value wins over the preset
 # (resolution lives in models.corex.Corex.config — the single config
@@ -23,22 +23,19 @@ from typing import Optional, Tuple
 # 'reference': the reference's recipe — every default unchanged (random
 #   init, annealed 0.6^k schedule, float32). The implicit preset of a
 #   bare Corex().
-# 'throughput': the measured-fastest production recipe at cfg5 scale
-#   (p=100k, m=512; benchmarks/RESULTS.md init study, 2026-08-17):
-#   int8 MXU operands + spectral init + anneal=False + tol=1e-4 (the
-#   int8 gradient noise floor) + the measured regime policy for the
-#   optimizer. Measured: best TC of any config on strong structure
-#   (206231-206246 in ~1.5 s vs annealed-random's 204835-205296 in
-#   ~3.2 s) and rescues the no-anneal collapse on weak structure
-#   (6961-6975 vs 4623, within the annealed seed spread at 2.4-7x less
-#   wall). CAVEAT: single fits land in a visibly worse basin often
-#   (measured at cfg5: ~12% of unseeded fits; 3 of 4 SEEDED throughput
-#   fits sat 6-9% below the best basin on the restart-probe harness) —
-#   pair with restarts when the TC matters:
-#   `Corex(preset='throughput', n_restarts=k)` runs k spectral lanes,
-#   each with its own random projection, and the measured best-of-4 at
-#   cfg5 recovered the good basin at HALF the wall of the sequential
-#   singles (41 s vs 82 s — benchmarks/RESULTS.md multi-restart note).
+# 'throughput': the fast production recipe at cfg5 scale (p=100k, m=512;
+#   benchmarks/RESULTS.md init study): int8 operands + spectral init +
+#   anneal=False + tol=1e-4 (the int8 gradient noise floor) + the regime
+#   policy for the optimizer. Quality (recorded before the move to the
+#   H100; its speed there is not measured yet): best TC of any config on
+#   strong structure (206231-206246 vs annealed-random's 204835-205296)
+#   and it rescues the no-anneal collapse on weak structure (6961-6975 vs
+#   4623, within the annealed seed spread). CAVEAT: single fits land in
+#   a visibly worse basin often (~12% of unseeded fits at cfg5; 3 of 4
+#   SEEDED throughput fits sat 6-9% below the best basin) — pair with
+#   restarts when the TC matters: `Corex(preset='throughput',
+#   n_restarts=k)` runs k spectral lanes, each with its own random
+#   projection (benchmarks/RESULTS.md multi-restart note).
 PRESETS = {
     "reference": {},
     "throughput": {
@@ -83,7 +80,7 @@ class CorexConfig:
 
     Mirrors the reference constructor surface (SURVEY.md §1 L5):
     n_hidden, max_iter, tol, anneal, discourage_overlap, y_scale plus
-    TPU-specific knobs the reference lacks (dtype, moment strategy).
+    knobs the reference lacks (dtype, moment strategy, operand precision).
     """
 
     n_hidden: int = 10
@@ -93,50 +90,38 @@ class CorexConfig:
     discourage_overlap: bool = True
     y_scale: float = 1.0
 
-    # --- TPU-native knobs (no reference analog) ---
-    # Compute dtype: float32 on TPU; float64 for oracle-parity runs on CPU.
+    # --- knobs with no reference analog ---
+    # Compute dtype: float32 for fits; float64 for oracle-parity runs
+    # (on the CPU, or natively on the GPU).
     dtype: str = "float32"
     # Throughput mode for the big moment GEMMs: 'bfloat16' runs them with
-    # bf16 operands (halves Σ/X HBM traffic; f32 accumulation and a f32
+    # bf16 operands (halves Σ/X memory traffic; f32 accumulation and a f32
     # elementwise chain). The gradient noise floor rises to ~1e-3 relative —
     # pair with tol>=1e-4. 'int8' (non-overlap path only) quantizes the
     # data operand once to int8 — X on the samples strategy, Σ on the gram
     # strategy (per-tensor scale: standardized columns / correlation
     # entries are range-homogeneous) — and the application operands
-    # per-column, running the big GEMMs as int8 x int8 → int32 on the MXU
-    # at 2x the bf16 rate with another 2x off the HBM footprint. Measured
-    # (annealed to tol=1e-4): cfg5 samples path identical TC to bf16
-    # (204361 vs 204386) in 2.6 s vs 4.0 s; north-star gram path TC 11888
-    # vs f32's 11902 at 0.98 vs 1.71 ms/iter. The accept/reject solver
+    # per-column, running the big GEMMs as int8 x int8 → int32 (twice the
+    # bf16 tensor-core rate on the H100) with another 2x off the memory
+    # footprint. Quality (annealed to tol=1e-4, recorded before the move
+    # to the H100): cfg5 samples path TC 204361 vs bf16's 204386;
+    # north-star gram path TC 11888 vs f32's 11902. The accept/reject solver
     # absorbs the quantization noise; keep tol >= 1e-4 (the gradient
     # noise floor is above bf16's). 'float32' is the accuracy default.
     matmul_dtype: str = "float32"
-    # XLA matmul precision for f32 operands on TPU. NOTE: 'default' lets the
-    # MXU compute f32 matmuls with ONE bf16 pass (measured: f32 and explicit
-    # bf16 run at the same 59x it/s at p=10k/m=512 — the default is already
-    # bf16 math). Set 'highest' (bf16x6 passes, ~true f32) when moment
-    # precision matters more than throughput.
+    # XLA matmul precision for f32 operands. On the H100, 'default' lets
+    # XLA run f32 dots in TF32 (10-bit mantissa, ~1e-3 relative error per
+    # product); 'highest' runs true f32. Set 'highest' when moment
+    # precision matters more than throughput. The default is kept until
+    # the ledger measures what TF32 costs in TC and buys in time.
     matmul_precision: str = "default"
     # Moment strategy: 'samples' = X^T(XW^T)/n (never materializes p x p,
     # memory O(np+pm)); 'gram' = precompute Sigma = X^T X / n once and use
-    # Sigma W^T per iteration (wins when n > p/2 and p x p fits in HBM);
-    # 'auto' picks per shapes.
+    # Sigma W^T per iteration (wins when n > p/2); 'auto' picks per
+    # shapes, using the gram path up to p = gram_max_p (an H100 bound is
+    # not measured yet).
     moment_strategy: str = "auto"
     gram_max_p: int = 20000
-    # Fused Pallas CHAIN kernel (ops/pallas_moments.py :: ns_chain): the
-    # whole elementwise moment chain + gradient algebra in one pass per
-    # p-tile with the m x m ry VMEM-resident; unaligned shapes are
-    # zero-padded exactly. 'auto' (default) enables it on TPU backends for
-    # m >= 128 (measured on v5e, production harness: +7-9% at m=512 on
-    # the gram path, +11-13% at p=100k samples; a wash below m=128).
-    # 'always' forces it for any m <= 1024; 'never' keeps the pure-XLA
-    # path; 'interpret' is 'always' through the Pallas INTERPRETER — the
-    # off-TPU way to exercise the kernel code path (the multichip dryrun
-    # harness uses it; tests use the pallas_interpret fixture instead).
-    # (A separate fused GEMM-products kernel, gram_products, was
-    # built in round 1 and deleted in round 2: measured integrated 272 vs
-    # 591 it/s (r1) / 447 vs 621 (r2) against this path — see DESIGN.md.)
-    use_pallas: str = "auto"
     # Deterministic first-order solver (mirrored exactly by the oracle):
     # 'momentum' = heavy-ball with momentum reset on rejected steps
     # (measured ~3x fewer iterations to the same TC than plain 'gd');
@@ -155,13 +140,13 @@ class CorexConfig:
     # Initial weights: 'random' = the reference's seeded N(0, 1/sqrt(p))
     # draw; 'spectral' = randomized range-finder init (one Σ-application
     # of a random (p, m) block + thin QR; rows of W start spanning the
-    # top-m subspace of Σ̂). Measured at cfg5 scale (2026-08-17,
-    # benchmarks/RESULTS.md "init" note): with anneal=False, spectral is
-    # the BEST measured config on both structure regimes — weak
-    # structure: TC 6961-6975 in ~1.1 s, matching the annealed-random
-    # TC (6989-7178, 2.6-7.3 s) where no-anneal random COLLAPSES to
+    # top-m subspace of Σ̂). Quality at cfg5 scale (benchmarks/RESULTS.md
+    # "init" note, recorded before the move to the H100): with
+    # anneal=False, spectral is the BEST measured config on both
+    # structure regimes — weak structure: TC 6961-6975, matching the
+    # annealed-random TC (6989-7178) where no-anneal random COLLAPSES to
     # 4623; strong structure: TC 206231-206246, beating every other
-    # config, in 1.5 s. WARNING (measured): combining init='spectral'
+    # config. WARNING (measured): combining init='spectral'
     # WITH anneal=True is harmful on strong structure — the early
     # high-eps stages scramble the aligned init and commit to a
     # catastrophically worse basin (TC 96-97k vs 205k) — pair spectral
@@ -176,15 +161,14 @@ class CorexConfig:
     # "stage-tol study", p=2048/m=64/n=4096, momentum f32):
     # stage_tol_factor=10 cuts total annealed iterations 1.9-2.4x on
     # weak structure and 1.2-1.3x on strong structure at final TC
-    # identical to ~0.01. Confirmed ON TPU at cfg5 scale (p=100k,
-    # float32 tol=1e-5, RESULTS.md cfg5 wall rows): 1.5x wall on weak
-    # structure (12.9 -> 8.6 s), 1.24x on strong, TC held; factor=30
-    # also holds at cfg5. CAVEAT (measured, scale-dependent): do NOT
+    # identical to ~0.01; at cfg5 scale (p=100k, float32 tol=1e-5) TC
+    # held at factor 10 and 30 (recorded before the move to the H100; the
+    # wall saving there is not measured yet). CAVEAT (scale-dependent): do NOT
     # combine the factor with matmul_dtype='int8' at scale — under
     # int8 moment noise a loosened stage tol truncates annealing and
     # COLLAPSES TC (cfg5: -24% on BOTH regimes at factor=10; strong
     # collapses already at factor=3, while float32 holds TC at the
-    # same composed tols). models.corex.resolve_optimizer warns when
+    # same composed tols). models.corex.resolve_config warns when
     # tol*factor*sqrt(p) >= 0.05 on the int8 path; small-scale int8
     # (p~2k, below the threshold) measured only mild drift. 1.0
     # (default) = reference-parity per-stage convergence. Inert when
@@ -316,10 +300,6 @@ class CorexConfig:
                 "stages scramble the aligned init; TC 96k vs 205k at "
                 "cfg5) — pair spectral with anneal=False "
                 "(benchmarks/RESULTS.md)")
-        if self.use_pallas not in ("auto", "always", "never", "interpret"):
-            raise ValueError(
-                f"unknown use_pallas: {self.use_pallas!r} (expected 'auto', "
-                f"'always', 'never' or 'interpret')")
         if self.matmul_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(
                 f"unknown matmul_dtype: {self.matmul_dtype!r} (expected "

@@ -1,15 +1,14 @@
 """The annealed fixed-point/GD solver as one compiled XLA program.
 
 This is layer L4 of the reference (`[U] linearcorex/linearcorex.py ::
-Corex.fit`, SURVEY.md §3.1) re-designed for TPU execution semantics:
+Corex.fit`, SURVEY.md §3.1) re-designed for accelerator execution:
 
 - The reference runs a Python `for` loop with a per-iteration convergence
-  check on the host. On this TPU attachment a single host sync costs ~35 ms
-  (BASELINE.md §2) — a 10k-iteration host-checked loop would spend minutes in
-  latency alone. Here the whole anneal schedule compiles to ONE device
-  program: `lax.scan` over the eps schedule, `lax.while_loop` for the inner
-  iteration, convergence predicate traced on device. One host sync per
-  `fit()` (SURVEY.md §7.3 item 0).
+  check on the host; on an accelerator each such check is a host round
+  trip and a separate dispatch. Here the whole anneal schedule compiles
+  to ONE device program: `lax.scan` over the eps schedule,
+  `lax.while_loop` for the inner iteration, convergence predicate traced
+  on device. One host sync per `fit()` (SURVEY.md §7.3 item 0).
 - Diagnostics (TC trajectory, iteration counts) are carried as fixed-size
   on-device arrays and returned once, never streamed.
 - The optimizer is deterministic adaptive gradient descent with step
@@ -43,7 +42,7 @@ class FitDiagnostics(NamedTuple):
     # The eps schedule the fit actually ran, snapshotted AT FIT TIME:
     # `history`/`_print_verbose`/`fit_report` label stages from here, so a
     # post-fit set_params(anneal=...) cannot silently mislabel the
-    # recorded trajectory (VERDICT r3 Weak #2).
+    # recorded trajectory.
     eps_schedule: jax.Array      # (n_stages,)
 
 

@@ -1,1 +1,1 @@
-"""TPU compute path: moment system, preprocessing, Pallas kernels (L1-L3)."""
+"""Compute path: moment system and preprocessing (L1-L3)."""

@@ -1,10 +1,11 @@
-"""The Linear CorEx moment system as pure JAX functions (TPU compute path).
+"""The Linear CorEx moment system as pure JAX functions (the compute path).
 
 This is layer L3 of the reference (`[U] linearcorex/linearcorex.py ::
-Corex._calculate_moments*`, SURVEY.md §2.3) re-designed TPU-first:
+Corex._calculate_moments*`, SURVEY.md §2.3) re-designed for XLA:
 
 - The p x p covariance is never materialized on the 'samples' path: the two
-  skinny GEMMs X·Wᵀ and Xᵀ·Y/n dominate and map directly onto the MXU.
+  skinny GEMMs X·Wᵀ and Xᵀ·Y/n dominate and go straight to the GEMM
+  units.
 - A 'gram' path precomputes Sigma = XᵀX/n ONCE and replaces both per-iteration
   GEMMs with a single Sigma·Wᵀ product — at the primary benchmark size
   (p=10k, m=512, n=10k) that is ~20x fewer FLOPs per iteration than the
@@ -32,7 +33,7 @@ _F32 = jnp.float32
 
 
 def _acc(t):
-    """MXU accumulation dtype: >=float32 always (bf16 inputs accumulate in
+    """GEMM accumulation dtype: >=float32 always (bf16 inputs accumulate in
     fp32), float64 preserved for oracle-parity runs."""
     return jnp.promote_types(t, _F32)
 
@@ -44,8 +45,8 @@ def _mm(a, b):
 
 
 def _mm_bf16(a, b, out_dtype):
-    """Throughput-mode matmul: bf16 operands on the MXU (2x rate, half the
-    HBM traffic), float32 accumulation, float32/out_dtype result."""
+    """Throughput-mode matmul: bf16 operands (tensor-core rate, half the
+    memory traffic), float32 accumulation, float32/out_dtype result."""
     return jnp.matmul(a.astype(jnp.bfloat16), b.astype(jnp.bfloat16),
                       preferred_element_type=_F32).astype(out_dtype)
 
@@ -57,18 +58,18 @@ def _mm_bf16(a, b, out_dtype):
 class QuantizedData(NamedTuple):
     """int8-quantized data operand: X (or Σ) ≈ scale · q, per-tensor scale.
 
-    The MXU runs int8 x int8 → int32 at 2x the bf16 rate (measured on v5e:
-    6.6 vs 11.7 ms per samples-path Σ-application pair at p=100k/m=512,
-    311 effective Tops), and the int8 operand halves bf16's HBM footprint
-    again. A per-tensor scale suffices for both operand kinds: the solver
-    standardizes X column-wise (unit variance ⇒ homogeneous range) and
+    The GEMMs run int8 x int8 → int32 (the H100's tensor cores take int8
+    at twice the bf16 rate), and the int8 operand halves bf16's memory
+    footprint again. A per-tensor scale suffices for both operand kinds:
+    the solver standardizes X column-wise (unit variance ⇒ homogeneous
+    range) and
     the Gram matrix is a correlation matrix (entries in [−1, 1]).
 
-    Measured end-to-end quality (annealed to tol=1e-4; the maintained
-    rows in benchmarks/RESULTS.md): cfg5 samples path TC 204361 vs bf16's
-    204386 — identical to 0.01% — in the same 133 iterations, 2.6 s vs
-    4.0 s; north-star gram path (p=10k, heavy-ball) TC 11888 vs f32's
-    11902 at 0.98 vs 1.71 ms/iter. The accept/reject line search plus
+    End-to-end quality (annealed to tol=1e-4; recorded before the move to
+    the H100, where chip_smoke.py re-checks int8 against f32 at full width):
+    cfg5 samples path TC 204361 vs bf16's 204386 in the same 133
+    iterations; north-star gram path (p=10k, heavy-ball) TC 11888 vs
+    f32's 11902. The accept/reject line search plus
     annealing absorb the quantization noise (gradient cosine vs f32 is
     0.9999 far from the optimum and ~0.89 near it — the noise floor is
     why tol must stay >= 1e-4 and int8 is excluded from the f64 parity
@@ -77,7 +78,7 @@ class QuantizedData(NamedTuple):
     Accumulation-range note: products accumulate in int32, so a p-axis
     contraction has a hard worst case of 127²·p (wraps beyond p≈133k).
     For the standardized operands this mode quantizes, accumulands are
-    zero-mean with RMS ~23 — the measured p=500k run sits ~5e3 standard
+    zero-mean with RMS ~23 — a p=500k run sat ~5e3 standard
     deviations below the wrap point — but adversarially rank-1-aligned
     inputs could overflow. `quantize_samples` GUARDS this at quantize
     time (eager callers — Corex.fit, pick_n_hidden, the restart drivers):
@@ -179,8 +180,8 @@ def _check_int8_wrap(qd: "QuantizedData") -> None:
 def _quantize_program(x):
     """abs-max scale + clip/round/cast as ONE fused program: the eager
     op-by-op chain materializes ~3 operand-sized f32 temporaries between
-    dispatches (at p=100k that is ~12 GB of transient HBM — the
-    difference between fitting and OOM on one chip; the fit path's
+    dispatches (at p=100k that is ~12 GB of transient device memory; the
+    fit path's
     `models.corex._prepare_program` fuses for the same reason). Inlined
     as a no-op when `quantize_samples` is itself called under a trace."""
     s = jnp.maximum(jnp.max(jnp.abs(x)).astype(_F32) / 127.0, 1e-30)
@@ -218,7 +219,7 @@ def _quant_cols(v):
 
 
 def _apply_sigma_int8(qd: QuantizedData, v):
-    """v (p, k) f32 ↦ Σ_emp·v via two int8 MXU GEMMs (int32 accumulation),
+    """v (p, k) f32 ↦ Σ_emp·v via two int8 GEMMs (int32 accumulation),
     samples operand.
 
     Scales factor out of the contractions: X ≈ sx·q (per-tensor) and
@@ -233,7 +234,7 @@ def _apply_sigma_int8(qd: QuantizedData, v):
 
 
 def _apply_gram_int8(qd: QuantizedData, v):
-    """v (p, k) f32 ↦ Σ·v via ONE int8 MXU GEMM (Gram operand)."""
+    """v (p, k) f32 ↦ Σ·v via ONE int8 GEMM (Gram operand)."""
     vq, sv = _quant_cols(v)
     r = jnp.matmul(qd.q, vq, preferred_element_type=jnp.int32)
     return r.astype(_F32) * (qd.scale * sv)[None, :]
@@ -295,7 +296,7 @@ class Moments(NamedTuple):
 
 
 def cxy_samples(x, ws: jax.Array, eps) -> jax.Array:
-    """C_xy = Xᵀ(X·Wᵀ)/n, annealed. Two O(n·p·m) MXU GEMMs; the p x p
+    """C_xy = Xᵀ(X·Wᵀ)/n, annealed. Two O(n·p·m) GEMMs; the p x p
     covariance is never formed (SURVEY.md §2.3 key architectural fact).
     A QuantizedData operand is dequantized here — this is the one-time
     exact path (final moments), not the per-iteration one."""
@@ -307,8 +308,8 @@ def cxy_samples(x, ws: jax.Array, eps) -> jax.Array:
 
 
 def cxy_gram(gram, ws: jax.Array, eps) -> jax.Array:
-    """C_xy = Sigma·Wᵀ, annealed — single O(p²·m) MXU GEMM against the
-    precomputed Gram matrix (TPU-native fast path; no reference analog).
+    """C_xy = Sigma·Wᵀ, annealed — single O(p²·m) GEMM against the
+    precomputed Gram matrix (a fast path with no reference analog).
     A QuantizedData operand is dequantized here (one-time exact path)."""
     gram = _dequantized(gram)
     c_xy = _mm(gram, ws.T)
@@ -319,9 +320,10 @@ def compute_gram(x: jax.Array) -> jax.Array:
     """Sigma = XᵀX/n (one-time O(n·p²) GEMM, amortized over the fit loop).
 
     Runs at 'highest' matmul precision regardless of the session default:
-    on TPU the default computes f32 matmuls with one bf16 pass (~4e-3
-    relative error), which is fine per-iteration but not for the moment
-    matrix every iteration consumes — and the cost is one-time."""
+    on the GPU the default lets XLA run f32 matmuls in TF32 (10-bit
+    mantissa, ~1e-3 relative error), which is fine per-iteration but not
+    for the moment matrix every iteration consumes — and the cost is
+    one-time."""
     n = x.shape[0]
     with jax.default_matmul_precision("highest"):
         return _mm(x.T, x) / n
@@ -330,8 +332,8 @@ def compute_gram(x: jax.Array) -> jax.Array:
 def moments_from_cxy(ws: jax.Array, c_xy: jax.Array, y_scale: float,
                      rho_clip: float) -> Moments:
     """All second-moment quantities + TC/MI given C_xy (SURVEY.md §2.3,
-    [HIGH], numerically verified). Pure VPU algebra + one m x m and one
-    m x p GEMM; fuses fully under XLA."""
+    [HIGH], numerically verified). Elementwise algebra + one m x m and
+    one m x p GEMM; XLA fuses the elementwise work around the GEMMs."""
     m = ws.shape[0]
     dt = ws.dtype
     cy = _mm(ws, c_xy) + (y_scale ** 2) * jnp.eye(m, dtype=dt)
@@ -433,91 +435,33 @@ def _apply_sigma_t(data, bf16, gram, dtype):
     return lambda v: _mm(data.T, _mm(data, v)) / n
 
 
-def _chain_interp(chain_kernel):
-    """Interpreter flag for a chain_kernel mode: the flag is False/True or
-    the string 'interpret' (run the kernel through the Pallas interpreter —
-    cfg.use_pallas='interpret', the off-TPU exercise path). None defers to
-    pallas_moments.INTERPRET_DEFAULT (the test fixture's knob)."""
-    return True if chain_kernel == "interpret" else None
-
-
-def _run_chain(ws, c_xy, y_scale, rho_clip, interpret=None):
-    """Shared prologue + fused chain call: cov(y) from C_xy, then the
-    Pallas chain kernel. Returns (dt, z2, sqz, chain outputs...)."""
-    from linearcorex_tpu.ops.pallas_moments import ns_chain
-    mdim = ws.shape[0]
-    dt = ws.dtype
-    cy = _mm(ws, c_xy) + (y_scale ** 2) * jnp.eye(mdim, dtype=dt)
-    z2 = jnp.diagonal(cy)
-    sqz = jnp.sqrt(z2)
-    ry = cy / jnp.outer(sqz, sqz)
-    return dt, z2, sqz, ns_chain(c_xy, ry, sqz, rho_clip,
-                                 interpret=interpret)
-
-
-def _chain_obj_tc(dt, z2, sum_log_vi, mi_sums, y_scale):
-    """Objective F and TC from the chain kernel's reductions."""
-    objective = 0.5 * sum_log_vi.astype(dt) + 0.5 * jnp.sum(jnp.log(z2))
-    i_y_x = 0.5 * jnp.log(z2) - jnp.log(jnp.asarray(y_scale, dt))
-    tc = jnp.sum(mi_sums.astype(dt) - i_y_x)
-    return objective, tc
-
-
-def _ns_obj_grad_chain(ws, c_xy, apply_sigma_t, eps, y_scale, rho_clip,
-                       interpret=None):
-    """Objective/gradient via the fused Pallas chain kernel
-    (ops/pallas_moments.py :: ns_chain). Works in (p, m) layout end-to-end —
-    no (m, p) transposes materialize. `apply_sigma_t(v)` maps a (p, m)
-    matrix to Σ_emp·v (gram or samples backend); the eps blend is applied
-    here."""
-    dt, z2, sqz, (aa_t, hmat, kappa, mu, mi_sums, sum_log_vi) = _run_chain(
-        ws, c_xy, y_scale, rho_clip, interpret=interpret)
-    aa_t = aa_t.astype(dt)
-    coef = (kappa + mu - 1.0).astype(dt)
-    aas_t = apply_sigma_t(aa_t)
-    aas_t = (1.0 - eps ** 2) * aas_t + (eps ** 2) * aa_t
-    inv_sqz = (1.0 / sqz).astype(dt)
-    rho_t = jnp.clip(c_xy * inv_sqz[jnp.newaxis, :], -rho_clip, rho_clip)
-    grad_t = (aas_t + _mm(rho_t, hmat.astype(dt))
-              - rho_t * coef[jnp.newaxis, :]) * inv_sqz[jnp.newaxis, :]
-    objective, tc = _chain_obj_tc(dt, z2, sum_log_vi, mi_sums, y_scale)
-    return objective, grad_t.T, tc
-
-
-def ns_obj_grad_samples(ws, x, eps, y_scale, rho_clip, bf16=False,
-                        chain_kernel=False):
+def ns_obj_grad_samples(ws, x, eps, y_scale, rho_clip, bf16=False):
     """(objective, gradient, TC) of the non-overlap objective, sample path.
 
-    Cost: 4 skinny MXU GEMMs (2 for moments, 2 for AA·Σ_eff); O(np+pm)
+    Cost: 4 skinny GEMMs (2 for moments, 2 for AA·Σ_eff); O(np+pm)
     memory. Matches the oracle's `ns_gradient` bit-for-bit in float64.
-    bf16=True runs the four big GEMMs with bfloat16 operands (f32 accum).
-    chain_kernel=True fuses the whole elementwise chain into one Pallas
-    kernel (see `_ns_obj_grad_chain`)."""
-    return _ns_obj_grad(ws, x, eps, y_scale, rho_clip, bf16, chain_kernel,
-                        gram=False)
+    bf16=True runs the four big GEMMs with bfloat16 operands (f32 accum)."""
+    return _ns_obj_grad(ws, x, eps, y_scale, rho_clip, bf16, gram=False)
 
 
-def ns_obj_grad_gram(ws, gram, eps, y_scale, rho_clip, bf16=False,
-                     chain_kernel=False):
+def ns_obj_grad_gram(ws, gram, eps, y_scale, rho_clip, bf16=False):
     """Same as `ns_obj_grad_samples` on the precomputed-Gram fast path:
     2 O(p²·m) GEMMs per evaluation, independent of n.
 
     With bf16=True the two big GEMMs run with bfloat16 operands (store the
-    Gram matrix in bf16 to also halve its HBM traffic); the moment chain
+    Gram matrix in bf16 to also halve its memory traffic); the moment chain
     stays float32 — use a looser tol (~1e-4)."""
-    return _ns_obj_grad(ws, gram, eps, y_scale, rho_clip, bf16,
-                        chain_kernel, gram=True)
+    return _ns_obj_grad(ws, gram, eps, y_scale, rho_clip, bf16, gram=True)
 
 
-def _ns_obj_grad(ws, data, eps, y_scale, rho_clip, bf16, chain_kernel,
-                 gram):
+def _ns_obj_grad(ws, data, eps, y_scale, rho_clip, bf16, gram):
     c_xy = _cxy_eff(data, ws, eps, bf16, gram)
-    if chain_kernel:
-        return _ns_obj_grad_chain(
-            ws, c_xy, _apply_sigma_t(data, bf16, gram, ws.dtype), eps,
-            y_scale, rho_clip, interpret=_chain_interp(chain_kernel))
-    mom = moments_from_cxy(ws, c_xy, y_scale, rho_clip)
-    aa, hmat, coef, sqz = _ns_gradient_terms(mom)
+    # the elementwise moment chain between the C_xy GEMM and the
+    # gradient GEMM; the scope names its kernels in a profiler trace
+    # (benchmarks/chain_share.py)
+    with jax.named_scope("moment_chain"):
+        mom = moments_from_cxy(ws, c_xy, y_scale, rho_clip)
+        aa, hmat, coef, sqz = _ns_gradient_terms(mom)
     if isinstance(data, QuantizedData):
         aas = _apply_int8(data, aa.T, gram).T.astype(ws.dtype)
     elif gram:
@@ -539,7 +483,7 @@ def _ns_obj_grad(ws, data, eps, y_scale, rho_clip, bf16, chain_kernel,
 # ---------------------------------------------------------------------------
 
 def ns_fp_parts(ws, data, eps, y_scale, rho_clip, bf16=False,
-                chain_kernel=False, gram=False):
+                gram=False):
     """Pieces of the closed-form fixed-point target, before the m x m solve.
 
     Setting the exact gradient to zero and substituting
@@ -551,7 +495,7 @@ def ns_fp_parts(ws, data, eps, y_scale, rho_clip, bf16=False,
     an m x m solve + elementwise algebra — NO Σ-sized GEMMs, so a
     fixed-point iteration costs 2 big GEMMs (the C_xy pair) instead of the
     gradient step's 4. The iterate W ← (1−γ)W + γŴ with the shared
-    accept/reject damping is the TPU rendering of the reference's damped
+    accept/reject damping is the JAX rendering of the reference's damped
     `_update_ws` fixed point (`[U] :: _update_ws`; mirrored exactly by the
     float64 oracle). Measured convergence quality vs heavy-ball is
     regime-dependent — see DESIGN.md's table (better on overcomplete m,
@@ -565,33 +509,25 @@ def ns_fp_parts(ws, data, eps, y_scale, rho_clip, bf16=False,
     The damped accept/reject iteration tolerates the resulting inaccurate
     f32 LU inverse, but iteratively TRACKING the inverse (Newton–Schulz,
     2 steps/iter; prototyped round 2) diverges immediately — ‖I−AM‖_F ≈
-    2.6e4 one step after an exact inverse — so the ~0.4 ms/iter LU cost
-    is irreducible here."""
+    2.6e4 one step after an exact inverse — so the LU inverse stays."""
     c_xy = _cxy_eff(data, ws, eps, bf16, gram)
-    return fp_parts_from_cxy(ws, c_xy, y_scale, rho_clip, chain_kernel)
+    return fp_parts_from_cxy(ws, c_xy, y_scale, rho_clip)
 
 
-def fp_parts_from_cxy(ws, c_xy, y_scale, rho_clip, chain_kernel=False):
+def fp_parts_from_cxy(ws, c_xy, y_scale, rho_clip):
     """`ns_fp_parts` given an already-annealed C_xy (the explicit-psum
     shard_map path reduces C_xy itself before calling this)."""
-    if chain_kernel:
-        dt, z2, sqz, (aa_t, hmat, kappa, mu, mi_sums, slv) = _run_chain(
-            ws, c_xy, y_scale, rho_clip,
-            interpret=_chain_interp(chain_kernel))
-        coef = (kappa + mu - 1.0).astype(dt)
-        a_mat = jnp.diag(coef) - hmat.astype(dt)
-        objective, tc = _chain_obj_tc(dt, z2, slv, mi_sums, y_scale)
-        return objective, tc, a_mat, aa_t.astype(dt), sqz
-    mom = moments_from_cxy(ws, c_xy, y_scale, rho_clip)
-    aa, hmat, coef, sqz = _ns_gradient_terms(mom)
+    with jax.named_scope("moment_chain"):
+        mom = moments_from_cxy(ws, c_xy, y_scale, rho_clip)
+        aa, hmat, coef, sqz = _ns_gradient_terms(mom)
     a_mat = jnp.diag(coef) - hmat
     return mom.objective, mom.tc, a_mat, aa.T, sqz
 
 
-def ns_fp_from_cxy(ws, c_xy, y_scale, rho_clip, chain_kernel=False):
+def ns_fp_from_cxy(ws, c_xy, y_scale, rho_clip):
     """Fixed-point (objective, ws − Ŵ, TC) from an already-annealed C_xy."""
     obj, tc, a_mat, aa_t, sqz = fp_parts_from_cxy(ws, c_xy, y_scale,
-                                                  rho_clip, chain_kernel)
+                                                  rho_clip)
     return obj, fp_target_from_parts(ws, jnp.linalg.inv(a_mat), aa_t,
                                      sqz), tc
 
@@ -600,34 +536,30 @@ def fp_target_from_parts(ws, a_mat_inv, aa_t, sqz):
     """Ŵ and the solver direction ws − Ŵ from `ns_fp_parts` pieces and the
     inverse of a_mat.
 
-    The m x m system is applied as an explicit inverse followed by an MXU
-    matmul rather than jnp.linalg.solve: a triangular solve with p right-
-    hand sides does not map onto the MXU and measured ~6 ms/iter at
-    p=100k/m=512, vs ~0.3 ms for inv + GEMM."""
+    The m x m system is applied as an explicit inverse followed by a
+    GEMM rather than jnp.linalg.solve: a triangular solve with p right-
+    hand sides runs far slower than inv + GEMM (its H100 cost is not
+    measured yet)."""
     target = _mm(a_mat_inv, aa_t.T) * sqz[:, None]
     return ws - target
 
 
-def ns_fp_samples(ws, x, eps, y_scale, rho_clip, bf16=False,
-                  chain_kernel=False):
+def ns_fp_samples(ws, x, eps, y_scale, rho_clip, bf16=False):
     """(objective, ws − Ŵ, TC) for the damped fixed-point update, samples
     path. The returned direction plugs into the solver's plain-GD step:
-    ws − γ·(ws − Ŵ) = (1−γ)·ws + γ·Ŵ. Cost: 2 skinny MXU GEMMs — half the
+    ws − γ·(ws − Ŵ) = (1−γ)·ws + γ·Ŵ. Cost: 2 skinny GEMMs — half the
     gradient step's 4."""
-    return _ns_fp(ws, x, eps, y_scale, rho_clip, bf16, chain_kernel,
-                  gram=False)
+    return _ns_fp(ws, x, eps, y_scale, rho_clip, bf16, gram=False)
 
 
-def ns_fp_gram(ws, gram, eps, y_scale, rho_clip, bf16=False,
-               chain_kernel=False):
+def ns_fp_gram(ws, gram, eps, y_scale, rho_clip, bf16=False):
     """Gram-path fixed-point update: ONE O(p²·m) GEMM per iteration."""
-    return _ns_fp(ws, gram, eps, y_scale, rho_clip, bf16, chain_kernel,
-                  gram=True)
+    return _ns_fp(ws, gram, eps, y_scale, rho_clip, bf16, gram=True)
 
 
-def _ns_fp(ws, data, eps, y_scale, rho_clip, bf16, chain_kernel, gram):
+def _ns_fp(ws, data, eps, y_scale, rho_clip, bf16, gram):
     obj, tc, a_mat, aa_t, sqz = ns_fp_parts(
-        ws, data, eps, y_scale, rho_clip, bf16, chain_kernel, gram)
+        ws, data, eps, y_scale, rho_clip, bf16, gram)
     return obj, fp_target_from_parts(ws, jnp.linalg.inv(a_mat), aa_t,
                                      sqz), tc
 

@@ -4,7 +4,7 @@ Parity anchors: `[U] linearcorex/linearcorex.py :: Corex.preprocess /
 invert / mean_impute`. Four gaussianize modes ('none' | 'standard' |
 'outliers' | 'empirical') plus sentinel-value mean imputation.
 
-TPU notes:
+Device notes:
 - 'empirical' needs average-tie ranks; implemented with two
   `jnp.searchsorted` calls per column over the sorted values (O(n log n),
   shape-static, vmappable) and `jax.scipy.special.ndtri` for norm.ppf.
@@ -62,8 +62,8 @@ def rankdata_average(col: jax.Array) -> jax.Array:
     """Average-tie ranks of a 1-D array (scipy.stats.rankdata parity).
 
     rank_i = (#less + #less_or_equal + 1)/2, computed with two binary
-    searches against the sorted column — shape-static and TPU-friendly
-    (SURVEY.md §7.3 item 5)."""
+    searches against the sorted column — shape-static and
+    accelerator-friendly (SURVEY.md §7.3 item 5)."""
     s = jnp.sort(col)
     lo = jnp.searchsorted(s, col, side="left")
     hi = jnp.searchsorted(s, col, side="right")

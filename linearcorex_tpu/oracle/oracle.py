@@ -11,7 +11,7 @@ mount `/root/reference` was empty, so the equation system below was
 reconstructed from the paper and BASELINE.json's contract and *numerically
 validated* (block recovery; sum(tcs) vs direct Gaussian TC to ~0.1%;
 annealing moment-blend identity). This float64 oracle is therefore the parity
-target for the TPU implementation: the JAX/Pallas path must match the oracle's
+target for the JAX implementation: the JAX path must match the oracle's
 TC and recovered weights to <=1e-5 when given identical initialization
 (SURVEY.md §4.2 item 1).
 
@@ -193,9 +193,9 @@ def ns_fixed_point_target(moments):
     same optima as heavy-ball on matched-n_hidden problems (validated in
     tests; on overcomplete n_hidden it can find better optima). Mirrored
     exactly by the JAX path (`ops/moments.py :: ns_fp_parts`) — including
-    the explicit inverse (the TPU path applies A⁻¹ as inv + MXU GEMM
-    because a p-RHS triangular solve is ~20x slower there; the oracle
-    matches the operation for step parity)."""
+    the explicit inverse (the JAX path applies A⁻¹ as inv + GEMM
+    because a p-RHS triangular solve is much slower on an accelerator;
+    the oracle matches the operation for step parity)."""
     aa, hmat, coef, sq = _ns_gradient_terms(moments)
     return np.linalg.inv(np.diag(coef) - hmat) @ aa * sq[:, None]
 
@@ -407,7 +407,7 @@ class OracleCorex:
         x = self.pre.fit_transform(x)
         self.n_samples, self.nv = x.shape
         if self.optimizer == "auto":
-            # mirror models.corex.resolve_optimizer's measured regime
+            # mirror models.corex.resolve_config's measured regime
             # policy: fixed_point iff fully sampled (n >= p) on the
             # non-overlap path. Resolved PER FIT into a separate attribute
             # — self.optimizer stays 'auto' so a refit on data in a

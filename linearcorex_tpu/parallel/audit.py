@@ -9,9 +9,10 @@ collectives XLA actually emitted out of the optimized HLO. `audit_fit`
 returns every collective op with its payload shape/bytes AND its replica
 groups (materialized to device-id tuples), so tests (and capacity
 planning) can assert the comm surface — including WHICH mesh axis each
-collective rides, the load-bearing fact for a 2-level slice x chip mesh
-where the intra-slice axis is ICI and the slice axis is DCN
-(SURVEY.md §2.8 comm row; tests/test_sharding.py multi-slice tests).
+collective rides, the load-bearing fact for a 2-level host x device
+mesh, where the inner axes stay on one host's NVLink and the outer
+'slice' axis crosses the inter-host network (SURVEY.md §2.8 comm row;
+tests/test_sharding.py multi-host tests).
 """
 
 from __future__ import annotations
@@ -97,14 +98,15 @@ def _parse_groups(line: str) -> Tuple[Tuple[int, ...], ...]:
 def groups_subset_of_axis(op: CollectiveOp, mesh, axis: str) -> bool:
     """True when every group of `op` stays within one set of devices that
     differ ONLY along `axis` of `mesh` — i.e. the collective rides that
-    mesh axis (for a 2-level slice x chip mesh: 'data' groups ride ICI,
-    'slice' groups cross DCN). Groups spanning several axes return False
+    mesh axis (for a 2-level host x device mesh: 'data' groups stay on
+    one host's NVLink, 'slice' groups cross the inter-host network).
+    Groups spanning several axes return False
     for each single axis.
 
     HLO replica_groups index the program's LOGICAL device assignment
     (position in mesh.devices' flattened order), NOT physical device ids
     — on a mesh built from a permuted device array (every real
-    multi-slice mesh, e.g. mesh_utils.create_hybrid_device_mesh) the two
+    multi-host mesh, e.g. sharding.make_hybrid_mesh) the two
     differ, so classification must use positional indices
     (tests/test_sharding.py permuted-mesh regression)."""
     import numpy as np
@@ -166,8 +168,8 @@ def audit_fit(data, w0, cfg, mesh, plan=None, strategy="samples",
             "(the audited program must be the one fit_sharded would run)")
     if n_samples is None and strategy == "samples":
         n_samples = operand.shape[0]
-    cfg = S.resolve_sharded_config(cfg, mesh, plan, operand.shape[-1],
-                                   n_samples)
+    from linearcorex_tpu.models.corex import resolve_config
+    cfg = resolve_config(cfg, operand.shape[-1], n_samples=n_samples)
     S.validate_plan_shapes(
         plan, strategy, mesh,
         operand.shape[0] if strategy != "gram" else None,
@@ -221,9 +223,7 @@ def audit_restarts(data, w0_batch, cfg, mesh, strategy="samples",
             "samples-strategy only (fit_restarts_sharded raises too)")
     if n_samples is None and strategy == "samples":
         n_samples = operand.shape[0]
-    cfg = resolve_config(cfg, w0_batch.shape[-1],
-                         platform=mesh.devices.flat[0].platform,
-                         n_samples=n_samples)
+    cfg = resolve_config(cfg, w0_batch.shape[-1], n_samples=n_samples)
     data_spec = P(data_axis, None) if data_axis is not None else P()
     data_arg = jax.ShapeDtypeStruct(
         operand.shape, operand.dtype,

@@ -2,10 +2,10 @@
 
 The reference runs random restarts as a serial Python loop
 (`[U] linearcorex/linearcorex.py :: pick_n_hidden(repeat=k)` refits k times).
-On TPU the restart axis is free parallelism: every core function in this
-package is written batch-free, and restarts batch through one `vmap` — a
-single compiled program whose GEMMs carry an extra leading axis that XLA
-tiles straight onto the MXU. The while_loop under vmap runs until the
+On an accelerator the restart axis is free parallelism: every core
+function in this package is written batch-free, and restarts batch
+through one `vmap` — a single compiled program whose GEMMs carry an extra
+leading (batch) axis. The while_loop under vmap runs until the
 slowest restart converges (per-lane convergence is carried in the predicate).
 """
 
@@ -109,8 +109,8 @@ def fit_restarts_sharded(data, w0_batch, cfg: CorexConfig, strategy: str,
     over `data_axis`, and GSPMD reduces each lane's p x m cross-moment
     over the data axis ONLY (audited: `parallel.audit.audit_restarts`;
     no collective rides the restart axis). This is the layout that makes
-    a 32-restart cfg5 sweep feasible — with the data replicated, bf16
-    OOMs a single chip at 4 restarts (benchmarks/RESULTS.md).
+    a 32-restart cfg5 sweep feasible: with the data replicated, every
+    device holds all of X beside its lanes' solver state.
     Samples strategy only: a Gram operand has no sample axis to shard.
 
     A caller-built `QuantizedData` operand runs the int8 accumulator-wrap
@@ -131,9 +131,7 @@ def fit_restarts_sharded(data, w0_batch, cfg: CorexConfig, strategy: str,
     operand = data.q if isinstance(data, QuantizedData) else data
     if n_samples is None and strategy == "samples":
         n_samples = operand.shape[0]
-    cfg = resolve_config(cfg, w0_batch.shape[-1],
-                         platform=mesh.devices.flat[0].platform,
-                         n_samples=n_samples)
+    cfg = resolve_config(cfg, w0_batch.shape[-1], n_samples=n_samples)
     sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
     d = sizes.get(axis_name)
     if d is None or w0_batch.shape[0] % d:
@@ -175,7 +173,7 @@ import contextlib
 @contextlib.contextmanager
 def lane_oom_guidance(lanes):
     """Scope that re-raises a device RESOURCE_EXHAUSTED from a restart
-    sweep with the measured lane-memory model and the remedies (the raw
+    sweep with the lane-memory model and the remedies (the raw
     XLA error names no knob). Callers must allocate the lane batch AND
     consume (host-sync) the results INSIDE the scope — under JAX async
     dispatch the OOM can surface at first consumption, not at
@@ -188,12 +186,10 @@ def lane_oom_guidance(lanes):
         raise type(e)(
             f"the {lanes}-lane restart sweep ran out of device memory: "
             f"every lane holds its own (n_hidden, n_variables) solver "
-            f"state. Measured single-chip ceiling at p=100k/m=512: 4 "
-            f"int8 lanes (6 OOM — benchmarks/RESULTS.md multi-restart "
-            f"note). Use fewer lanes (Corex n_restarts= / pick_n_hidden "
+            f"state. Use fewer lanes (Corex n_restarts= / pick_n_hidden "
             f"repeat=), run the fits sequentially (seeded single fits; "
             f"pick_n_hidden(padded_sweep=False)), or shard the lane "
-            f"axis over more chips (a mesh with a 'restarts' axis, "
+            f"axis over more devices (a mesh with a 'restarts' axis, "
             f"data_axis= for the combined restarts x data "
             f"layout).") from e
 
@@ -212,7 +208,7 @@ def restart_batch_runner(mesh, restart_axis: str = "restarts",
     """Batch-fit dispatcher for restart sweeps: single-device
     `fit_restarts`, or — with a mesh — `fit_restarts_sharded` with the
     restart batch axis sharded over `restart_axis` (the
-    zero-communication EP layout, SURVEY.md §2.8; VERDICT r2 Missing #4a)
+    zero-communication EP layout, SURVEY.md §2.8)
     and, when `data_axis` is given, the sample rows over that axis too
     (the combined restarts x data layout — for sweeps whose data is too
     large to replicate per device). A batch that does not divide the axis

@@ -5,9 +5,9 @@ The reference's only observability is `verbose` prints with wall-time. Here:
   TensorBoard/XProf without code changes;
 - `fit_report` turns the on-device FitDiagnostics into a human-readable
   per-stage summary (host sync happens once, here, by explicit request);
-- `iteration_rate` measures steady-state solver throughput with the
-  measurement discipline this TPU attachment needs (single compiled
-  program, scalar-fetch timing; BASELINE.md §2 traps).
+- `iteration_rate` measures steady-state solver throughput of one compiled
+  fit program (compile excluded, each timed call closed by a scalar
+  fetch, which waits for the device).
 """
 
 from __future__ import annotations
@@ -53,23 +53,23 @@ def fit_report(diagnostics, schedule=None) -> str:
 
 def iteration_rate(run_fn, *args, warmup: bool = True,
                    n_timed: Optional[int] = None, reps: int = 3):
-    """Time a compiled fit program safely on this attachment.
+    """Time a compiled fit program.
 
     run_fn(*args) must return (ws, diagnostics) and be jitted; each timed
     region is one call (one host sync via a scalar fetch), repeated `reps`
-    times taking the minimum — this TPU attachment shows rare ~0.5 s
-    host-side hiccups that corrupt single-shot timings. Returns
-    (iterations_per_second, total_iterations, seconds).
+    times taking the median. Returns (iterations_per_second,
+    total_iterations, seconds).
     """
     if warmup:
         ws, diag = run_fn(*args)
         float(np.asarray(diag.tc_per_stage)[-1])
-    dt = float("inf")
+    times = []
     for _ in range(max(1, reps)):
         t0 = time.perf_counter()
         ws, diag = run_fn(*args)
         float(np.asarray(diag.tc_per_stage)[-1])
-        dt = min(dt, time.perf_counter() - t0)
+        times.append(time.perf_counter() - t0)
+    dt = float(np.median(times))
     total = int(np.asarray(diag.iters_per_stage).sum())
     if n_timed is not None:
         total = n_timed

@@ -2,7 +2,7 @@
 //
 // Role (SURVEY.md §2.2 / §2.1): the reference's preprocessing layer leans on
 // scipy (rankdata + norm.ppf) on the host. For large n x p panels that path
-// is the data-loading bottleneck before anything reaches the TPU, so this
+// is the data-loading bottleneck before anything reaches the accelerator, so this
 // library provides a native implementation of the two host-side kernels:
 //
 //   - empirical_gaussianize: per-column average-tie ranking followed by the

@@ -1,4 +1,4 @@
-"""API surface tests for the TPU Corex estimator (SURVEY.md §2.6 contract)."""
+"""API surface tests for the Corex estimator (SURVEY.md §2.6 contract)."""
 
 import numpy as np
 import pytest
@@ -47,7 +47,7 @@ def test_history(med_block_data):
 
 def test_history_labels_survive_set_params(med_block_data, capsys):
     """The eps labels in `history`/verbose come from the FIT-TIME schedule
-    snapshot in the diagnostics (VERDICT r3 Weak #2): a post-fit
+    snapshot in the diagnostics: a post-fit
     set_params(anneal=False) must neither relabel nor truncate the
     recorded trajectory."""
     c = lc.Corex(n_hidden=8, seed=0, verbose=False).fit(med_block_data)
@@ -168,7 +168,8 @@ def test_bf16_matmul_mode_quality(med_block_data):
 
 def test_matmul_precision_option(small_block_data):
     """'highest' precision mode runs and matches default on CPU (where f32
-    matmuls are true f32 either way; the knob matters on TPU MXU)."""
+    matmuls are true f32 either way; the knob matters on the GPU, where
+    the default is TF32)."""
     import linearcorex_tpu as lc
     w0 = np.random.RandomState(9).normal(scale=1 / np.sqrt(32), size=(4, 32))
     c1 = lc.Corex(n_hidden=4).fit(small_block_data, init_ws=w0)
@@ -357,7 +358,7 @@ def test_unseeded_init_is_device_side_and_fresh(small_block_data):
 
 
 # ---------------------------------------------------------------------------
-# init='spectral' (round-3 TPU-native addition; measured at cfg5 in
+# init='spectral' (round-3 addition; measured at cfg5 in
 # benchmarks/RESULTS.md — pair with anneal=False)
 # ---------------------------------------------------------------------------
 
@@ -390,7 +391,7 @@ def test_spectral_init_warns_with_anneal():
 def test_int8_stage_tol_scale_hazard_warns():
     """Pin the measured int8 x stage_tol_factor scale hazard
     (benchmarks/RESULTS.md stage-tol study, cfg5 rows): at p=100k with
-    int8's tol=1e-4, factor>=3 collapses TC ~24%, so resolve_optimizer
+    int8's tol=1e-4, factor>=3 collapses TC ~24%, so resolve_config
     warns when tol*factor*sqrt(p) >= 0.05 on the int8 annealed path —
     and stays silent at every measured-safe point."""
     from linearcorex_tpu.models.corex import resolve_config
@@ -403,25 +404,24 @@ def test_int8_stage_tol_scale_hazard_warns():
         return lc.CorexConfig(**base)
 
     with pytest.warns(UserWarning, match="int8 moment noise"):
-        resolve_config(cfg(), 100_000, platform="cpu", n_samples=10_000)
+        resolve_config(cfg(), 100_000, n_samples=10_000)
     # composed 3e-4 at p=100k -> 0.095: the measured strong-structure
     # collapse point must warn too
     with pytest.warns(UserWarning, match="COLLAPSE"):
         resolve_config(cfg(stage_tol_factor=3.0), 100_000,
-                       platform="cpu", n_samples=10_000)
+                       n_samples=10_000)
     import warnings as W
     with W.catch_warnings():
         W.simplefilter("error")
         # measured-safe: small scale (p=2048 -> 0.045), factor=1 at any
         # scale, f32 at the same composed tol, and anneal=False
-        resolve_config(cfg(), 2048, platform="cpu", n_samples=4096)
+        resolve_config(cfg(), 2048, n_samples=4096)
         resolve_config(cfg(stage_tol_factor=1.0), 100_000,
-                       platform="cpu", n_samples=10_000)
+                       n_samples=10_000)
         resolve_config(cfg(matmul_dtype="float32", tol=1e-5,
                            stage_tol_factor=30.0), 100_000,
-                       platform="cpu", n_samples=10_000)
-        resolve_config(cfg(anneal=False), 100_000, platform="cpu",
                        n_samples=10_000)
+        resolve_config(cfg(anneal=False), 100_000, n_samples=10_000)
         # the checkpoint driver's unit: a pre-baked single-stage program
         # (eps_override set, tol already composed, factor kept). The
         # factor is inert on a length-1 schedule — recomputing
@@ -429,7 +429,7 @@ def test_int8_stage_tol_scale_hazard_warns():
         # measured-safe fit (found in round-4 review)
         import dataclasses as _dc
         resolve_config(_dc.replace(cfg(), eps_override=0.6, tol=1e-3),
-                       2048, platform="cpu", n_samples=4096)
+                       2048, n_samples=4096)
 
 
 def test_spectral_init_f64_oracle_parity(med_block_data):
@@ -470,7 +470,7 @@ def test_spectral_init_params_roundtrip(tmp_path, small_block_data):
 
 
 def test_empirical_transform_batch_relative_semantics():
-    """Pin (VERDICT r3 Missing #5): gaussianize='empirical' re-ranks the
+    """Pin: gaussianize='empirical' re-ranks the
     TRANSFORM batch against itself (matching the oracle / presumed
     upstream `preprocess(x, fit=False)`). Sharp consequence: the
     transform is invariant to any strictly monotone per-column
@@ -515,7 +515,7 @@ def test_empirical_transform_small_batch_warns():
 
 
 # ---------------------------------------------------------------------------
-# Presets (VERDICT r3 #8): named hyperparameter bundles, resolved through
+# Presets: named hyperparameter bundles, resolved through
 # the single config policy in Corex.config (config.apply_preset)
 
 
@@ -563,7 +563,7 @@ def test_throughput_preset_matches_maintained_e2e_row():
     if either side changes, re-measure and update both."""
     from linearcorex_tpu.models.corex import resolve_config
     cfg = lc.Corex(n_hidden=512, preset="throughput").config
-    r = resolve_config(cfg, 100_000, platform="tpu", n_samples=10_000)
+    r = resolve_config(cfg, 100_000, n_samples=10_000)
     assert (r.matmul_dtype, r.init, r.anneal, r.tol) == (
         "int8", "spectral", False, 1e-4)
     assert r.optimizer == "momentum"   # 'auto' at n=10k < p=100k

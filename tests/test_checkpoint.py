@@ -176,7 +176,7 @@ def test_fit_with_checkpoints_sharded_matches_sharded_fit(tmp_path,
                                                           med_block_data):
     """mesh= runs every stage through the sharded program: the
     checkpointed sharded fit equals the uncheckpointed Corex.fit(mesh=...)
-    (f64, 8-device CPU mesh) — VERDICT r2 Missing #4b / Weak #6."""
+    (f64, 8-device CPU mesh)."""
     from linearcorex_tpu.parallel.sharding import make_mesh
     from linearcorex_tpu.utils.checkpoint import fit_with_checkpoints
 
@@ -200,7 +200,7 @@ def test_fit_with_checkpoints_mesh_resume_is_layout_invariant(
     config/data/schedule, not layout) and reaches the same solution.
 
     Rows are trimmed to a mesh-divisible count: since the mesh-aware
-    prepare (VERDICT r3 Missing #3) the GSPMD divisibility contract is
+    prepare the GSPMD divisibility contract is
     enforced at `_prepare_fit(mesh=...)` — BEFORE the resume discovers
     the checkpoint is complete — exactly like every other mesh entry
     point. Both runs must see the same x (the fingerprint covers it)."""
@@ -297,3 +297,30 @@ def test_fingerprint_ignores_default_valued_config_fields(
     fp_d = _fit_fingerprint(m_default, x, sched)
     assert fp_d == _fit_fingerprint(m_explicit, x, sched)
     assert fp_d != _fit_fingerprint(m_changed, x, sched)
+
+
+def test_load_legacy_checkpoint_with_use_pallas(tmp_path, small_block_data):
+    """Checkpoints written while the fused-chain option existed carry a
+    `use_pallas` config entry; load_corex ignores it and the model
+    serves and refits as before."""
+    import json
+
+    from linearcorex_tpu.utils.checkpoint import load_corex, save_corex
+
+    m = lc.Corex(n_hidden=4, seed=0).fit(small_block_data)
+    path = str(tmp_path / "legacy.npz")
+    save_corex(m, path)
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    meta = json.loads(bytes(arrays["meta_json"]).decode())
+    meta["config"]["use_pallas"] = "always"
+    arrays["meta_json"] = np.frombuffer(json.dumps(meta).encode(),
+                                        dtype=np.uint8)
+    np.savez(path, **arrays)
+    m2 = load_corex(path)
+    assert not hasattr(m2.config, "use_pallas")
+    assert "use_pallas" not in m2.get_params()
+    np.testing.assert_allclose(np.asarray(m2.transform(small_block_data)),
+                               np.asarray(m.transform(small_block_data)),
+                               rtol=1e-6, atol=1e-6)
+    assert np.isfinite(m2.fit(small_block_data).tc)

@@ -3,7 +3,7 @@
 
 Configs 2/3/5 run at CI-scaled sizes (same shape regime, smaller constants)
 so the suite stays fast on the single-core CPU test runner; `bench.py` and
-`benchmarks/` exercise the full sizes on TPU hardware.
+`benchmarks/` exercise the full sizes on the GPU.
 """
 
 import numpy as np
@@ -123,7 +123,7 @@ def test_config5_sharded_restart_sweep():
 ])
 def test_fixed_point_on_configs(cfg_name, n, p, m):
     """The fixed-point optimizer reaches the heavy-ball optimum on the
-    acceptance-config shapes (VERDICT r1 'done' criterion for the
+    acceptance-config shapes (the 'done' criterion for the
     reference-style update)."""
     x = block_data(n=n, p=p, m=m, seed=2)
     w0 = np.random.RandomState(1).normal(scale=1 / np.sqrt(p), size=(m, p))

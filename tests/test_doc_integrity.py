@@ -1,5 +1,5 @@
 """Docstring-citation integrity: every RESULTS.md section a docstring
-cites must actually exist (VERDICT r4 Weak #1 — a knob shipped citing a
+cites must actually exist (a knob shipped citing a
 'stage-subsample study' that was never written down; this test makes
 that class of drift impossible).
 

@@ -61,26 +61,6 @@ def test_fixed_point_under_sampled():
     assert np.array_equal(np.asarray(fp.clusters), np.asarray(hb.clusters))
 
 
-def test_fixed_point_chain_kernel_path(pallas_interpret):
-    """The chain-kernel fp evaluation equals the XLA fp evaluation."""
-    import jax.numpy as jnp
-    from linearcorex_tpu.ops import moments as M
-
-    p, m = 256, 128
-    x = block_data(n=1000, p=p, m=8, seed=1)
-    x = (x - x.mean(0)) / x.std(0)
-    xj = jnp.asarray(x, jnp.float32)
-    ws = jnp.asarray(np.random.RandomState(2).normal(
-        scale=0.05, size=(m, p)), jnp.float32)
-    for eps in (0.0, 0.36):
-        f1, d1, t1 = M.ns_fp_samples(ws, xj, eps, 1.0, 1 - 1e-6)
-        f2, d2, t2 = M.ns_fp_samples(ws, xj, eps, 1.0, 1 - 1e-6,
-                                     chain_kernel=True)
-        assert abs(float(f1 - f2)) / abs(float(f1)) < 1e-5
-        assert abs(float(t1 - t2)) / max(abs(float(t1)), 1e-6) < 1e-4
-        assert np.abs(np.asarray(d1 - d2)).max() < 2e-2
-
-
 def test_fixed_point_rejects_overlap():
     # config validation fires at first use, not construction (sklearn
     # deferred-validation contract)
@@ -106,15 +86,12 @@ def test_optimizer_auto_resolution():
     from linearcorex_tpu.models.corex import resolve_config
 
     cfg = CorexConfig(n_hidden=8, optimizer="auto")
-    assert resolve_config(cfg, 64, platform="cpu",
-                          n_samples=64).optimizer == "fixed_point"
-    assert resolve_config(cfg, 64, platform="cpu",
-                          n_samples=63).optimizer == "momentum"
-    assert resolve_config(cfg, 64, platform="cpu").optimizer == "momentum"
+    assert resolve_config(cfg, 64, n_samples=64).optimizer == "fixed_point"
+    assert resolve_config(cfg, 64, n_samples=63).optimizer == "momentum"
+    assert resolve_config(cfg, 64).optimizer == "momentum"
     overlap = CorexConfig(n_hidden=8, optimizer="auto",
                           discourage_overlap=False)
-    assert resolve_config(overlap, 64, platform="cpu",
-                          n_samples=1000).optimizer == "momentum"
+    assert resolve_config(overlap, 64, n_samples=1000).optimizer == "momentum"
 
 
 def test_optimizer_auto_unresolved_rejected():

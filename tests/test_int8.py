@@ -1,7 +1,7 @@
 """matmul_dtype='int8' — quantized samples-path GEMMs (ops/moments.py ::
-QuantizedData). Measured on v5e at cfg5: identical TC to bf16 (204361 vs
-204386) in 2.6 s vs 4.0 s e2e — int8 x int8 → int32 runs the MXU at 2x the
-bf16 rate; the accept/reject solver absorbs the quantization noise."""
+QuantizedData). At cfg5 the int8 fit reached the same TC as bf16 (204361 vs
+204386; int8 x int8 → int32 GEMMs); the accept/reject solver absorbs the
+quantization noise."""
 
 import numpy as np
 import pytest
@@ -171,7 +171,7 @@ def test_int8_shard_map_rejected():
 
 
 # ---------------------------------------------------------------------------
-# int32 accumulator-wrap guard (quantize-time; VERDICT r2 Weak #2)
+# int32 accumulator-wrap guard (quantize-time)
 # ---------------------------------------------------------------------------
 
 def test_int8_overflow_guard_raises_on_aligned_wrap():
@@ -230,7 +230,7 @@ def test_int8_overflow_guard_overridable_and_jit_transparent():
 
 def test_sharded_boundaries_guard_caller_quantized_operand():
     """fit_sharded / fit_restarts_sharded re-guard a caller-built
-    QuantizedData (VERDICT r3 Weak #3): the public sharded entry points
+    QuantizedData: the public sharded entry points
     are exactly where pre-quantized operands arrive without having gone
     through quantize_samples' eager guard. check_overflow=False is the
     documented escape hatch (proved by reaching the NEXT validation

@@ -1,6 +1,6 @@
 """Property tests for the float64 oracle (SURVEY.md §4.2 item 2).
 
-The oracle is the executable spec; these tests pin down the behaviors the TPU
+The oracle is the executable spec; these tests pin down the behaviors the JAX
 path must then match to 1e-5 (test_parity.py).
 """
 

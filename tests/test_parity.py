@@ -1,11 +1,11 @@
-"""Oracle parity: the TPU path must reproduce the float64 oracle.
+"""Oracle parity: the JAX path must reproduce the float64 oracle.
 
 This is the contract from BASELINE.json ("matches the NumPy reference to
 1e-5 on TC and recovered weights") executed per SURVEY.md §4.2 item 1: both
 implementations consume the same explicit `init_ws`, run the identical
 deterministic solver, and must agree step-for-step in float64. The float32
-TPU dtype is held to the looser-but-meaningful bars (same clusters, TC to
-1e-3 relative).
+production dtype (float32) is held to the looser-but-meaningful bars
+(same clusters, TC to 1e-3 relative).
 """
 
 import numpy as np
@@ -81,8 +81,8 @@ def test_f64_details_moments(med_block_data):
         assert np.abs(np.asarray(md[key]) - mo[key]).max() < 1e-5, key
 
 
-def test_f32_tpu_dtype_quality(med_block_data):
-    """float32 (the TPU production dtype): identical clusters, close TC."""
+def test_f32_dtype_quality(med_block_data):
+    """float32 (the production dtype): identical clusters, close TC."""
     x = med_block_data
     w0 = _shared_init(8, 64)
     c = lc.Corex(n_hidden=8, dtype="float32").fit(x, init_ws=w0)

@@ -1,7 +1,7 @@
 """Reference-mount parity suite — SKIPS while /root/reference is empty.
 
 The reference mount has held zero files at every check since SURVEY time
-(SURVEY.md §0; VERDICT r3 reconfirmed). The moment it populates, this module
+(SURVEY.md §0). The moment it populates, this module
 stops skipping and mechanically diffs the real `linearcorex` package against
 the repo's float64 oracle (the stand-in spec, SURVEY.md §0.1): anchor
 locations, the [MED]-confidence constants (anneal schedule, rho clip), and
@@ -60,7 +60,7 @@ def test_constants_match_oracle():
     assert not divergent, (
         f"reference constants diverge from the oracle: {divergent} — "
         f"update linearcorex_tpu/oracle/oracle.py (the executable spec) "
-        f"first, then re-run tests/test_parity.py against the TPU path")
+        f"first, then re-run tests/test_parity.py against the JAX path")
 
 
 def test_seed_matched_behavior(ref_mod):

@@ -5,61 +5,15 @@ import jax.numpy as jnp
 import pytest
 
 import linearcorex_tpu as lc
-import linearcorex_tpu.ops.pallas_moments as PM
 from linearcorex_tpu.config import CorexConfig
-from linearcorex_tpu.ops import preprocessing as P
-from linearcorex_tpu.ops import moments as M
-from linearcorex_tpu.parallel.restarts import fit_restarts, init_restarts
+from linearcorex_tpu.parallel.restarts import init_restarts
 from tests.conftest import block_data
-
-
-def test_fit_restarts_gram_chain_final_moments(pallas_interpret):
-    """Final moments after a chain-kernel gram restart sweep must use the
-    gram path (regression: cxy_samples was applied to the Gram matrix)."""
-    import dataclasses
-    p, m = 256, 128
-    x = block_data(n=600, p=p, m=8, seed=0)
-    xp, _ = P.fit_preprocess(jnp.asarray(x, jnp.float32), "standard")
-    gram = M.compute_gram(xp)
-    cfg = CorexConfig(n_hidden=m, dtype="float32",
-                      record_history=False, max_iter=30, anneal=False)
-    w0 = init_restarts(2, m, p, seed=0, dtype=jnp.float32)
-    _, mom_plain, _ = fit_restarts(gram, w0, cfg, "gram")
-    cfg_chain = dataclasses.replace(cfg, use_pallas="always")
-    _, mom_chain, _ = fit_restarts(gram, w0, cfg_chain, "gram")
-    tc_a = np.asarray(mom_plain.tc)
-    tc_b = np.asarray(mom_chain.tc)
-    assert np.abs(tc_a - tc_b).max() / np.abs(tc_a).max() < 1e-3
 
 
 def test_unknown_moment_strategy_rejected():
     # deferred to first use (sklearn contract: __init__ must not validate)
     with pytest.raises(ValueError, match="unknown moment_strategy"):
         lc.Corex(n_hidden=2, moment_strategy="gram_pallas").config
-
-
-def test_ns_chain_rejects_unsupported_shapes():
-    """Unaligned shapes are now zero-padded (exactly); the one hard limit
-    left is m > 1024 post-padding (the ry block must fit VMEM)."""
-    m = 1030
-    c = jnp.zeros((16, m), jnp.float32)
-    ry = jnp.eye(m, dtype=jnp.float32)
-    sqz = jnp.ones(m, jnp.float32)
-    with pytest.raises(ValueError, match="chain kernel supports"):
-        PM.ns_chain(c, ry, sqz, 1 - 1e-6, interpret=True)
-    # small / unaligned shapes go through the padding wrapper fine
-    out = PM.ns_chain(jnp.zeros((10, 12), jnp.float32),
-                      jnp.eye(12, dtype=jnp.float32),
-                      jnp.ones(12, jnp.float32), 1 - 1e-6, interpret=True)
-    assert out[0].shape == (10, 12)
-
-
-def test_use_pallas_always_oversized_m_clear_error(small_block_data):
-    """use_pallas='always' beyond the kernel's VMEM limit raises a named
-    error, not ZeroDivisionError."""
-    x = np.random.RandomState(0).normal(size=(50, 1100))
-    with pytest.raises(ValueError, match="chain kernel supports"):
-        lc.Corex(n_hidden=1030, use_pallas="always", max_iter=2).fit(x)
 
 
 def test_checkpointed_fit_history_works(tmp_path, small_block_data):
@@ -79,14 +33,13 @@ def test_load_corex_roundtrips_solver_config(tmp_path, small_block_data):
     were silently reset to defaults)."""
     from linearcorex_tpu.utils.checkpoint import load_corex, save_corex
     c = lc.Corex(n_hidden=4, seed=0, optimizer="gd",
-                 matmul_dtype="bfloat16", use_pallas="never",
+                 matmul_dtype="bfloat16",
                  matmul_precision="highest").fit(small_block_data)
     path = str(tmp_path / "m.npz")
     save_corex(c, path)
     c2 = load_corex(path)
     assert c2.config.optimizer == "gd"
     assert c2.config.matmul_dtype == "bfloat16"
-    assert c2.config.use_pallas == "never"
     assert c2.config.matmul_precision == "highest"
 
 

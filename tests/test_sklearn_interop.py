@@ -2,7 +2,7 @@
 
 The reference is a plain sklearn-style estimator (SURVEY.md §1:
 `[U] linearcorex/linearcorex.py :: Corex` exposes fit/transform/
-fit_transform and is used inside sklearn tooling downstream). The TPU
+fit_transform and is used inside sklearn tooling downstream). This
 estimator mirrors that contract: `y` is accepted-and-ignored on
 fit/fit_transform/score (Pipelines and cross-validation pass it
 positionally), `get_params`/`set_params` support `clone`, and the

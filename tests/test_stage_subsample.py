@@ -74,7 +74,7 @@ def test_stride_one_fraction_matches_plain_fit(small_block_data):
     """A fraction that rounds to stride 1 (> 2/3: no rows would actually
     drop) is INERT: stage_subsample_active warns and the fit runs the
     plain one-program path — no split, no extra sync/compile for zero
-    subsampling (ADVICE r4). Must land bitwise on the plain fit's
+    subsampling. Must land bitwise on the plain fit's
     optimum."""
     x = small_block_data
     w0 = _w0(4, 32, seed=5)
